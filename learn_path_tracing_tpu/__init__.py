@@ -1,10 +1,10 @@
-"""learn_path_tracing_tpu — a TPU-native path-tracing framework.
+"""learn_path_tracing_tpu — a JAX wavefront path-tracing framework.
 
 A from-scratch rebuild of the capabilities of JeffreyXiang/learn_path_tracing
-(a Taichi/CUDA "Ray Tracing in One Weekend" tracer) designed for TPU hardware:
+(a Taichi/CUDA "Ray Tracing in One Weekend" tracer) that runs on an NVIDIA
+GPU (and on the CPU for tests):
 
-- All compute is JAX/XLA with hand-written Pallas (Mosaic) kernels on the hot
-  paths (sphere-scan intersection, BVH traversal, texture gather).
+- All compute is plain JAX/XLA.
 - Rays, hits and materials are SoA pytrees of flat ``f32[N]`` / ``f32[N,3]``
   arrays — no per-thread control flow, everything is masked wavefront passes.
 - Sampling uses a counter-based (stateless) RNG keyed on
@@ -20,7 +20,6 @@ Layout:
   camera/      pinhole & thin-lens cameras, free-fly controls
   integrator/  wavefront renderer (bounce scan, spp accumulation)
   accel/       SAH BVH build (host) + traversal (device)
-  ops/         Pallas TPU kernels
   scene/       World containers, .world.npy serialization
   io/          OBJ/MTL loading, textures, environment maps, PNG
   parallel/    device-mesh sharding of the render loop

@@ -6,14 +6,19 @@ and this C++ builder ~100ms while producing *identical* arrays (the split
 rule, float semantics, and node ordering are replicated exactly —
 tests/test_native_bvh.py asserts equality against accel/bvh.py).
 
-The shared library is built on demand with g++ (csrc/Makefile); if the
+The shared library is built on demand with g++ (csrc/Makefile) into
+``csrc/build/``, under a name keyed by the hash of the source and Makefile
+and by the host, so a ``-march=native`` build is only ever loaded on the
+machine that compiled it, always from the committed source. If the
 toolchain or build fails, callers fall back to the numpy builder.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import threading
 
@@ -21,7 +26,19 @@ import numpy as np
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _CSRC = os.path.join(_ROOT, "csrc")
-_SO = os.path.join(_CSRC, "liblpt_native.so")
+
+
+def _library_path() -> str:
+    """``csrc/build/liblpt_native-<source hash>-<host hash>.so``."""
+    src = hashlib.sha256()
+    for name in ("bvh_builder.cpp", "Makefile"):
+        with open(os.path.join(_CSRC, name), "rb") as f:
+            src.update(f.read())
+    host = hashlib.sha256(
+        f"{platform.node()}|{platform.machine()}".encode()).hexdigest()
+    return os.path.join(_CSRC, "build", f"liblpt_native-{src.hexdigest()[:16]}"
+                        f"-{host[:8]}.so")
+
 
 _lock = threading.Lock()
 _lib = None
@@ -34,13 +51,15 @@ def _load():
         if _lib is not None or _lib_failed:
             return _lib
         try:
-            if not os.path.exists(_SO) or (
-                os.path.getmtime(_SO)
-                < os.path.getmtime(os.path.join(_CSRC, "bvh_builder.cpp"))
-            ):
-                subprocess.run(["make", "-C", _CSRC, "-s"], check=True,
-                               capture_output=True, timeout=120)
-            lib = ctypes.CDLL(_SO)
+            so = _library_path()
+            if not os.path.exists(so):
+                # build under a private name, then rename: concurrent
+                # processes never load a half-written library
+                tmp = f"{so}.{os.getpid()}.tmp"
+                subprocess.run(["make", "-C", _CSRC, "-s", f"OUT={tmp}"],
+                               check=True, capture_output=True, timeout=120)
+                os.replace(tmp, so)
+            lib = ctypes.CDLL(so)
             lib.lpt_build_bvh.restype = ctypes.c_int
             lib.lpt_build_bvh.argtypes = [
                 ctypes.POINTER(ctypes.c_float),   # plow

@@ -1,9 +1,9 @@
 """Wide (8-ary) BVH: collapse + lockstep wavefront traversal.
 
-TPU-native acceleration layout: the reference's binary BVH walks ~60-100
-nodes per ray with one AABB test each (15_module.py:756-779) — on a vector
-machine it is far better to test 8 sibling AABBs per step (one fused VPU
-op block) and cut the iteration count by ~3x, which also slashes the
+Wavefront acceleration layout: the reference's binary BVH walks ~60-100
+nodes per ray with one AABB test each (15_module.py:756-779) — in lockstep
+it is far better to test 8 sibling AABBs per step (one fused elementwise
+block) and cut the iteration count by ~3x, which also slashes the
 per-iteration gather count (one wide-node row instead of many binary rows).
 
 Host side, a binary FlatBVH (accel/bvh.py) is collapsed by repeatedly
@@ -241,10 +241,9 @@ def traverse_wide(wbvh: WideBVH, ro, rd, leaf_test, eps: float = EPSILON,
 
     def cond(state):
         # state = (stack, stack_t, sp, t_best, prim_best); terminate when
-        # every lane's stack pointer has popped below 0. (Round-1 bug: this
-        # tested state[1] — the f32 distance stack, whose entries are >= 0
-        # forever — so the loop never ended: the CPU test suite hung and the
-        # TPU watchdog killed the worker.)
+        # every lane's stack pointer has popped below 0. (Not state[1]: the
+        # f32 distance stack's entries are >= 0 forever, so testing it
+        # would never end the loop.)
         return jnp.any(state[2] >= 0)
 
     def body(state):

@@ -3,8 +3,8 @@
 Semantics mirror /root/reference/taichi_pathtracer/8_refract/bsdf.py:62-110
 (identical in stages 9/10) but evaluated branchlessly over ``f32[N,3]``
 batches: both the metal and dielectric lobes are computed for every lane and
-the result is selected with ``jnp.where`` — on TPU this is cheaper than any
-divergence scheme, and it is exactly how the reference's warp-divergent
+the result is selected with ``jnp.where`` — no divergence scheme, and it
+is exactly how the reference's warp-divergent
 dispatch behaves distribution-wise.
 
 Key behavioral details preserved:
@@ -103,10 +103,8 @@ def scatter_legacy(rays: Rays, hits: Hits, base) -> Rays:
     # exclusive), and branch selection uses independent uniforms
     # (u_metal/u_fresnel), so each consumed sample is still an independent
     # uniform sphere draw — the distribution is unchanged while the pass
-    # saves a second sin/cos pair (~0.6 ms per 230k lanes,
-    # scripts/profile_bsdf.py). The in-ball radius is max(u3,u4,u5) — the
-    # exact cbrt(U) law without jnp.cbrt's multi-ms TPU lowering
-    # (sampling.ball_radius).
+    # saves a second sin/cos pair. The in-ball radius is max(u3,u4,u5) —
+    # the exact cbrt(U) law without jnp.cbrt (sampling.ball_radius).
     s_sphere = sp.sample_at_sphere(u1, u2)
     ball = s_sphere * sp.ball_radius(u3, u4, u5)[..., None]
 

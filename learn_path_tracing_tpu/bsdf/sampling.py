@@ -37,9 +37,9 @@ def sample_at_sphere(u1, u2):
 
 def ball_radius(u1, u2, u3):
     """Radius of a uniform in-ball point from three uniforms: ``max(u1,u2,u3)``
-    has CDF r³ — exactly the cbrt(U) distribution — while ``jnp.cbrt``
-    measured 0.9–3.6 ms per 57.6k lanes on TPU (XLA lowers it through the
-    generic pow/exp-log path) and extra counter-RNG uniforms are ~free."""
+    has CDF r³ — exactly the cbrt(U) distribution — without ``jnp.cbrt``
+    (XLA lowers it through the generic pow/exp-log path); extra counter-RNG
+    uniforms are ~free."""
     return jnp.maximum(u1, jnp.maximum(u2, u3))
 
 
@@ -122,10 +122,9 @@ def refract(d, n, ior):
 def schlick(cos_theta, f0):
     """Schlick fresnel approximation: F0 + (1-F0)(1-cosθ)⁵.
 
-    The fifth power is spelled as explicit squaring: XLA:TPU lowers
-    ``x ** 5`` through the generic pow path (exp/log), measured ~40%
-    slower than three multiplies at wavefront width
-    (scripts/profile_bsdf.py: 1.42 vs 1.02 ms per 230k lanes)."""
+    The fifth power is spelled as explicit squaring (three multiplies)
+    rather than ``x ** 5``, which XLA may lower through the generic pow
+    path (exp/log)."""
     c = jnp.maximum(cos_theta, 0.0)
     m = 1.0 - c
     m2 = m * m

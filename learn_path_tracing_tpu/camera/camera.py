@@ -20,6 +20,7 @@ from __future__ import annotations
 import math
 
 import jax.numpy as jnp
+from jax import lax
 
 from ..core import rng
 from ..core.pytree import pytree_dataclass
@@ -55,7 +56,11 @@ def rotation_matrix(yaw_deg, pitch_deg, roll_deg):
     yaw_m = jnp.array([[cy, 0.0, sy], [0.0, 1.0, 0.0], [-sy, 0.0, cy]])
     pitch_m = jnp.array([[1.0, 0.0, 0.0], [0.0, cp, -sp_], [0.0, sp_, cp]])
     roll_m = jnp.array([[cr, -sr, 0.0], [sr, cr, 0.0], [0.0, 0.0, 1.0]])
-    return (yaw_m @ pitch_m @ roll_m).astype(jnp.float32)
+    # HIGHEST: a GPU may run default-precision f32 products in TF32, which
+    # would shift every ray by about a pixel
+    hi = lax.Precision.HIGHEST
+    return jnp.matmul(jnp.matmul(yaw_m, pitch_m, precision=hi), roll_m,
+                      precision=hi).astype(jnp.float32)
 
 
 def pixel_grid(resolution):
@@ -84,9 +89,10 @@ def generate_rays_for_pixels(params: CameraParams, resolution, pixel_ids,
     fov_scale = params.fov_scale if params.fov_scale is not None else 0.5
     view_width = 2.0 * jnp.tan(jnp.deg2rad(params.fov) * fov_scale)
     view_height = view_width * (h / w)
-    direction = trans @ jnp.array([0.0, 0.0, -1.0], jnp.float32)
-    width_axis = trans @ jnp.array([1.0, 0.0, 0.0], jnp.float32)
-    height_axis = trans @ jnp.array([0.0, 1.0, 0.0], jnp.float32)
+    # the basis vectors are the columns of trans (exact; no matrix product)
+    direction = -trans[:, 2]
+    width_axis = trans[:, 0]
+    height_axis = trans[:, 1]
 
     if model == "center":
         du = (fi / (w - 1) - 0.5) * view_width

@@ -1,4 +1,4 @@
-"""Counter-based (stateless) RNG for Monte-Carlo sampling on TPU.
+"""Counter-based (stateless) RNG for Monte-Carlo sampling on the device.
 
 The reference tracer uses Taichi's stateful per-thread ``ti.random()``
 (e.g. /root/reference/taichi_pathtracer/10_final/camera.py:85), which is

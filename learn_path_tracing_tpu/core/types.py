@@ -2,8 +2,8 @@
 
 The reference models rays/hits/materials as Taichi structs mutated in place
 per GPU thread (/root/reference/taichi_pathtracer/10_final/dtypes.py:1-9).
-On TPU the natural layout is structure-of-arrays pytrees over a flat ray
-index, transformed functionally — every field below is a ``jnp`` array with
+Here the layout is structure-of-arrays pytrees over a flat ray index,
+transformed functionally — every field below is a ``jnp`` array with
 a leading wavefront dimension ``[N]``.
 
 The material model is the union of the modern and legacy reference lines:

@@ -1,27 +1,26 @@
 """Batched ray-sphere intersection.
 
 Replaces the reference's per-thread linear scan over ``Sphere.field``
-(/root/reference/taichi_pathtracer/10_final/world.py:24-33,42-59) with a
-TPU-native formulation: the two per-(ray, sphere) dot products that dominate
-the quadratic setup are batched matmuls
-
-    rd @ centers.T   and   ro @ centers.T      (``f32[N,3] x f32[3,S]``)
-
-which XLA tiles onto the MXU, with the remaining quadratic solve as fused
-elementwise VPU ops and a single min/argmin reduction over the sphere axis.
-A Pallas kernel (ops/sphere_scan.py) implements the same math with the
-``[N, S]`` intermediates kept in VMEM for the full-resolution hot path.
+(/root/reference/taichi_pathtracer/10_final/world.py:24-33,42-59) with one
+``[N, S]`` elementwise evaluation of the reference's per-pair quadratic
+(``oc = ro - c`` first, 8_refract/world.py:45-57) followed by a single
+min/argmin reduction over the sphere axis, which XLA fuses into one reduce.
+No matrix product is involved, so no TF32 rounding can reach ``t`` (the
+expanded ``rd @ centers.T`` form loses whole units of ``t`` against the
+10,000-radius ground sphere when a GPU runs f32 products in TF32).
+geometry/sphere_f64.py is its float64 oracle.
 
 Behavioral parity with the reference:
 - nearest hit with ``t >= t_min`` (1e-4), first sphere wins ties;
 - if the near root is closer than ``t_min`` and the sphere is transparent,
   the far root is used instead (8_refract/world.py:55-56) — this is what
   lets rays exit glass;
-- spheres with radius <= 0 never hit (used for padding to lane multiples).
+- spheres with radius <= 0 never hit (used for padding).
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 # plain float, not jnp.float32: a module-level jnp constant would
@@ -41,26 +40,27 @@ def intersect_spheres(ro, rd, centers, radii, transparency, t_min: float = T_MIN
       ``(t, idx)``: ``f32[N]`` hit distance (+inf on miss) and ``i32[N]``
       sphere index (arbitrary on miss — mask with ``jnp.isfinite(t)``).
     """
-    # MXU-batched dot products.
-    d_dot_c = rd @ centers.T                                   # f32[N,S]
-    o_dot_c = ro @ centers.T                                   # f32[N,S]
-    o_dot_d = jnp.sum(ro * rd, axis=-1, keepdims=True)         # f32[N,1]
-    o_dot_o = jnp.sum(ro * ro, axis=-1, keepdims=True)         # f32[N,1]
-    c_dot_c = jnp.sum(centers * centers, axis=-1)              # f32[S]
-
-    half_b = o_dot_d - d_dot_c
-    c = o_dot_o - 2.0 * o_dot_c + (c_dot_c - radii * radii)[None, :]
-    disc = half_b * half_b - c
+    oc = [ro[:, d:d + 1] - centers[None, :, d] for d in range(3)]  # [N, S]
+    half_b = -(oc[0] * rd[:, 0:1] + oc[1] * rd[:, 1:2] + oc[2] * rd[:, 2:3])
+    c0 = oc[0] * oc[0] + oc[1] * oc[1] + oc[2] * oc[2] - (radii * radii)[None]
+    disc = half_b * half_b - c0
     sq = jnp.sqrt(jnp.maximum(disc, 0.0))
-    t_near = -half_b - sq
-    t_far = -half_b + sq
-    t = jnp.where((t_near < t_min) & (transparency[None, :] > 0.0), t_far, t_near)
+    t_near = half_b - sq
+    t = jnp.where((t_near < t_min) & (transparency[None, :] > 0.0),
+                  half_b + sq, t_near)
     valid = (disc >= 0.0) & (t >= t_min) & (radii[None, :] > 0.0)
     t = jnp.where(valid, t, INF)
 
-    idx = jnp.argmin(t, axis=-1).astype(jnp.int32)
-    t_best = jnp.take_along_axis(t, idx[:, None], axis=-1)[:, 0]
-    return t_best, idx
+    # one variadic reduce yields the min and its first index together
+    idx = jax.lax.broadcasted_iota(jnp.int32, t.shape, 1)
+
+    def first_min(a, b):
+        take_b = (b[0] < a[0]) | ((b[0] == a[0]) & (b[1] < a[1]))
+        return (jnp.where(take_b, b[0], a[0]), jnp.where(take_b, b[1], a[1]))
+
+    t_best, idx_best = jax.lax.reduce(
+        (t, idx), (jnp.float32(INF), jnp.int32(2 ** 31 - 1)), first_min, (1,))
+    return t_best, jnp.where(jnp.isfinite(t_best), idx_best, 0)
 
 
 def sphere_normal(point, center, radius):

@@ -1,17 +1,12 @@
 """Hybrid integrator: dense primary mega-passes feeding ONE shared
 persistent secondary pool.
 
-The round-3 cohort experiment (integrator/cohort.py) proved the workload
-decomposition right and the amortization wrong: on the reference's mesh
-scenes (legacy/PT_in_one_weekend/15_module.py:36-44) the mean path length
-is ~1.4 segments, so ~71% of all traversal work is scanline-coherent camera
-rays that traverse ~12x faster dense and unsorted (147 Mrays/s at 1.84M
-lanes, scripts/profile_cohort.py) — but the cohort's per-CHUNK secondary
-cascade re-paid full-slab fixed costs (full-width env+scatter+acc 26.3 ms,
-15-operand compaction sort 20.8 ms) once per spp chunk, sinking it to 8.40
-Mrays/s against the persistent integrator's 12.22. This integrator keeps
-the cohort's phase A and replaces its phase B with the persistent pool's
-shape, shared across ALL chunks:
+On the reference's mesh scenes (legacy/PT_in_one_weekend/15_module.py:
+36-44) the mean path length is ~1.4 segments, so most traversal work is
+scanline-coherent camera rays that can be traced dense and unsorted. A
+per-chunk secondary cascade would re-pay full-slab fixed costs once per spp
+chunk, so this integrator traces primaries densely per chunk and gives the
+secondaries the persistent pool's shape, shared across ALL chunks:
 
 - **phase A (per spp-chunk)**: all ``n * chunk_spp`` camera rays traced in
   ONE dense, unsorted, pixel-major traversal-only pass
@@ -30,13 +25,12 @@ shape, shared across ALL chunks:
   deposits, no pool pass), so ZERO bounce passes run until every chunk
   delivered; then one end-of-render cascade traces the whole secondary
   workload at widths that track the live count (halving ``drain_ratio``
-  levels). Round-3's eager make-room draining measured 35 pool passes at
-  18.6% average occupancy on the Yoimiya bench (hybrid_stats,
-  2026-08-20); lazy fill + a ratio-2 cascade is the fix. If survivors
+  levels). Eager make-room draining ran many pool passes at low
+  occupancy; lazy fill + a ratio-2 cascade avoids that. If survivors
   overflow the pool (hit-heavy scenes past the 1M-lane cap), the
   make-room shape returns as the fallback: drain until the batch fits,
-  sort-merge into dead slots — always correct, no overflow poisoning
-  (VERDICT round-3's ask). A batch whose survivors exceed the batch
+  sort-merge into dead slots — always correct, no overflow poisoning.
+  A batch whose survivors exceed the batch
   width spills into multiple merge rounds either way.
 
 Escape radiance in phase B is CARRIED per lane (``rad``) and deposited by
@@ -106,8 +100,7 @@ def render_hybrid(world_data, cam: CameraParams, resolution, spp: int,
     """
     if scene != "legacy":
         raise ValueError("render_hybrid targets legacy mesh scenes; use "
-                         "render_persistent for sphere scenes (measured "
-                         "fastest there, BASELINE.md)")
+                         "render_persistent for sphere scenes")
     w, h = resolution
     n = w * h
     out = _hybrid_core(world_data, cam, resolution, n, 0, sample_base, spp,
@@ -156,20 +149,12 @@ def _hybrid_core(world_data, cam: CameraParams, resolution, n: int,
     cap = min(cap, _r256(L0))
     if pool_w <= 0:
         # Size the pool to hold every primary survivor of the whole render
-        # (total/8 ≈ the measured Yoimiya primary hit fraction with 45%
-        # headroom), bounded by a 1M-lane cap. When it fits, chunks SPLICE
-        # survivor batches into untouched slots and ZERO pool passes run
-        # until the end-of-render cascade — the round-4 fix for 35
-        # make-room passes at 18.6% occupancy (hybrid_stats, 2026-08-20).
-        # Past the cap, make-room draining returns as the fallback — but
-        # those passes run with the pool full (~95% occupancy), which is
-        # the point; zero passes was never the goal, cheap ones were.
-        # memory cap 1M lanes: XLA:TPU's variadic sort allocates ~2x
-        # next-pow2 scratch PER OPERAND, and pool passes sort ~19 columns
-        # — a 1.84M-row pool compiled to 19.2G of HBM temps (OOM at
-        # 15.75G, 2026-08-21). At 1M (already a power of two) the same
-        # sorts fit comfortably; overflowing scenes pay a couple of
-        # high-occupancy make-room passes instead.
+        # (total/8 ≈ the Yoimiya primary hit fraction with headroom),
+        # bounded by a 1M-lane cap that bounds the pool sorts' scratch
+        # memory. When it fits, chunks SPLICE survivor batches into
+        # untouched slots and ZERO pool passes run until the end-of-render
+        # cascade. Past the cap, make-room draining returns as the
+        # fallback, with the pool full (high occupancy).
         pool_w = min(max(n * spp // 8, 2 * cap), 1 << 20)
     pool_w = _r256(min(pool_w, n * spp))
     pool_w = max(pool_w, cap)
@@ -184,22 +169,16 @@ def _hybrid_core(world_data, cam: CameraParams, resolution, n: int,
     # ---------------------------------------------------- pool machinery --
     # Pool state tuple P = 15 flat [w] columns:
     #   (ro0,ro1,ro2, rd0,rd1,rd2, th0,th1,th2, ra0,ra1,ra2, wid,bounce,alive)
-    # COLUMNS, not [w,3] arrays, on purpose: XLA:TPU lays out f32[N,3]
-    # while-carries as T(8,128) — the minor dim pads 3 -> 128 (42.7x), so a
-    # 1M-lane pool of four [N,3] arrays costs ~2 GB of HBM instead of 48 MB
-    # (measured: the [W,3] variant OOMed at 19.03G/15.75G, 2026-08-21).
-    # Columns are also what lax.sort wants, killing 6 stack/unstack ops per
-    # pool sort. Every function below is width-polymorphic (drain levels
-    # reuse them).
+    # Columns are what lax.sort wants (no stack/unstack per pool sort).
+    # Every function below is width-polymorphic (drain levels reuse them).
     def _v3(c0, c1, c2):
         return jnp.stack([c0, c1, c2], axis=-1)
 
     def pool_pass(P, segments):
         """One COMPACTING secondary bounce pass over the pool
         (scene.legacy_world.trace_shade_compact): the pool's per-lane
-        state rides the traversal's coherence sort and a hit-compaction
-        sort, so the pass returns the pool with its alive lanes inside
-        the prefix ``[0, nhits)`` — no restoring sort, attrs on the exact
+        state rides a hit-compaction sort, so the pass returns the pool
+        with its alive lanes inside the prefix ``[0, nhits)`` — no restoring sort, attrs on the exact
         hit count, and cascade narrowing becomes a slice. Escape radiance
         goes to the carried per-lane ``rad`` (deposited on narrowing or
         final flush), not to acc."""
@@ -243,9 +222,8 @@ def _hybrid_core(world_data, cam: CameraParams, resolution, n: int,
                 nhits)
 
     def sort_pool(P, dead_first: bool):
-        """Payload-through-sort of the whole pool by aliveness (argsort +
-        per-field gather measured ~4x slower for this shape, see
-        ops.packet_traverse._sort_fwd). Columns in, columns out."""
+        """Payload-through-sort of the whole pool by aliveness. Columns in,
+        columns out."""
         alive = P[-1]
         key = alive if dead_first else ~alive
         out = lax.sort((key.astype(jnp.uint32),) + P[:-1] + (alive,),
@@ -332,7 +310,7 @@ def _hybrid_core(world_data, cam: CameraParams, resolution, n: int,
         rays = generate_rays_for_pixels(cam, cam_res, pixel_a + pixel_base,
                                         seed, sample_a + sample_base,
                                         model=camera_model)
-        t, prim, src = trace_legacy(world_data, rays, sort_rays=False)
+        t, prim, src = trace_legacy(world_data, rays)
         segments = segments + jnp.float32(L0)
         hitm = jnp.isfinite(t)
         esc = ~hitm
@@ -349,8 +327,7 @@ def _hybrid_core(world_data, cam: CameraParams, resolution, n: int,
         # order within it is harmless — every downstream step keys on the
         # carried work-item id). src rides prim's high bits (prim < 2^24
         # — 16.7M primitives, far above any scene here; src+1 < 128),
-        # cutting the round-4 5-operand extraction sort (7.5 ms/chunk at
-        # 1.84M rows, scripts/profile_hybrid.py) to 3 operands.
+        # so the extraction sort carries 3 operands instead of 5.
         wid_a = pixel_a * uspp + sample_a
         count = jnp.sum(hitm.astype(jnp.uint32))
         ps = jnp.where(hitm, prim | ((src + 1) << 24), -1)
@@ -408,7 +385,7 @@ def _hybrid_core(world_data, cam: CameraParams, resolution, n: int,
             # Fast path: the batch fits in never-touched slots — SPLICE it
             # (15 column dynamic_update_slices, no sort, no pool pass, no
             # deposits: overwritten rows are this render's own dead padding
-            # with rad = 0). ``fill`` stays 1024-aligned (TPU tile) by
+            # with rad = 0). ``fill`` stays 1024-aligned by
             # rounding each advance up; the skipped <=1023 rows stay dead
             # padding.
             def do_splice(op):
@@ -421,7 +398,7 @@ def _hybrid_core(world_data, cam: CameraParams, resolution, n: int,
                 return P, acc, segments, passes, live, fill
 
             # Overflow fallback: drain the pool until the batch fits, then
-            # sort-merge into dead slots (the round-3 make-room shape).
+            # sort-merge into dead slots (the make-room shape).
             # Once taken, live lanes are scattered anywhere — fill pins to
             # W so every later batch also takes this branch.
             def do_makeroom(op):

@@ -1,9 +1,10 @@
 """Persistent-wavefront integrator with path regeneration.
 
 The reference's wavefront relies on Taichi's sparse bitmasked pools to skip
-dead rays (15_module.py:56-57,1032-1034). On TPU, masked lanes still burn
-VPU cycles, so a fixed bounce loop wastes ~(limit / avg_bounces)x of the
-intersection work. This integrator keeps every lane busy instead:
+dead rays (15_module.py:56-57,1032-1034). In a dense wavefront, masked
+lanes still cost their share of every pass, so a fixed bounce loop wastes
+~(limit / avg_bounces)x of the intersection work. This integrator keeps
+every lane busy instead:
 
 - the render is a list of ``N*spp`` work items; item ``w`` is
   (pixel = w // spp, sample = w % spp); lane ``i`` processes items
@@ -17,8 +18,7 @@ intersection work. This integrator keeps every lane busy instead:
   ``witem = lane + k*n`` and ``spp | n``, the target pixel decomposes as
   ``pixel = group + k*(n/spp)`` where ``group = lane // spp`` is *static*
   per lane and only ``k`` (the per-lane item counter, < spp) is dynamic.
-  The per-pixel scatter-add (measured 42 ms/pass in round 1 — XLA
-  serializes TPU scatters) therefore becomes a batched one-hot matmul
+  The per-pixel scatter-add therefore becomes a batched one-hot matmul
   over the tiny spp axis into an ``[n/spp, spp, 3]`` accumulator, plus a
   single transpose at the end. When ``spp`` does not divide ``n`` the
   scatter fallback is used.
@@ -43,59 +43,37 @@ from ..core import rng
 from ..core.pytree import tree_where
 from .wavefront import _scene_fns
 
-# Smallest auto-policy pool: 56 sphere-kernel blocks of 1024 lanes — enough
-# grid steps to amortize per-pass fixed costs (measured knee on v5e; the
-# n/32 = 28.8k-lane point regressed 106.9 -> 92.2 Mrays/s).
+# Smallest auto-policy pool (lanes): below it per-pass fixed costs dominate.
 POOL_FLOOR = 57600
 
-# items_per above which the accumulate switches to the two-level factorized
-# one-hot (see ``accumulate``): the flat one-hot's O(items) per-pass traffic
-# is tolerable at the 720p headline's ~1029 items (measured at parity) and
-# a 2x loss by ~2058 (1080p) — switch just past the headline point.
+# items_per above which the accumulate switches from the flat one-hot to
+# the sliding window (see ``accumulate``): the flat one-hot's per-pass
+# traffic grows with items_per.
 _ACC_SPLIT_MIN_ITEMS = 1280
 
 # Sliding accumulation-window width (see ``accumulate_w`` in
 # _persistent_core): the spread of per-lane item counters stays well under
-# +-200 on the measured workloads (item lists concentrate by CLT), so 1024
-# leaves a wide margin and parking ~never fires, while the [g, spp, 1024]
-# one-hot stays inside XLA's cheap fusion regime (the same shape class the
-# 720p headline's flat path fuses at 0.08 ms/pass).
+# +-200 on these workloads (item lists concentrate by CLT), so 1024 leaves
+# a wide margin and parking ~never fires.
 ACC_WINDOW = 1024
 
 
 @partial(jax.jit, static_argnames=("resolution", "spp", "limit", "bsdf",
                                    "camera_model", "scene", "hit_backend",
-                                   "engine", "pool_mult", "pool_div",
+                                   "pool_mult", "pool_div",
                                    "drain_ratio", "drain_floor",
                                    "drain_unroll", "acc_split", "stats"))
 def render_persistent(world_data, cam: CameraParams, resolution, spp: int,
                       limit: int = 32, seed=0, bsdf: str = "modern",
                       camera_model: str = "thinlens", scene: str = "spheres",
-                      hit_backend: str = "auto", engine: str = "auto",
+                      hit_backend: str = "auto",
                       pool_mult: int = 0, pool_div: int = 0,
                       drain_ratio: int = 8, drain_floor: int = 0,
                       drain_unroll: int = 0, acc_split: int = 0,
                       stats: bool = False):
     """Returns (image f32[W,H,3], segments f32). Same sample values as
-    wavefront.render; per-pixel sum order differs (~1 ulp).
-
-    ``engine``: 'mega' runs the whole pass as one fused Pallas kernel
-    (ops/bounce_megakernel.py — spheres + modern BSDF + thin-lens only,
-    spp | n); 'modular' composes the per-stage ops. 'auto' picks 'modular':
-    measured on v5e, the megakernel is ~1.6x *slower* (31.8 vs 50.6 Mrays/s
-    at 1280x720) because Mosaic's scalar-loop transcendental lowering loses
-    to XLA's fused wide elementwise pipeline for the BSDF/camera math — the
-    hybrid split (Pallas for the [rays, spheres] scan + one-hot gather, XLA
-    for [n]-wide shading) is the fast configuration. The megakernel's
-    sampling matches the modular path's RNG counters exactly but its
-    transcendental approximations differ at ~1e-4, so images agree within
-    MC noise rather than bitwise.
-    """
+    wavefront.render; per-pixel sum order differs (~1 ulp)."""
     w, h = resolution
-    if engine == "auto":
-        engine = "modular"
-    if engine == "mega":
-        return _render_mega(world_data, cam, resolution, spp, limit, seed)
     n = w * h
     out = _persistent_core(
         world_data, cam, resolution, n, 0, 0, spp, limit, seed, bsdf,
@@ -139,13 +117,11 @@ def _persistent_core(world_data, cam: CameraParams, resolution, n: int,
     # pixel = L//spp + k*G (G = pool//spp), sample = L % spp,
     # k < items_per = n*spp/pool.
     #
-    # pool > n (pool_mult, round-1 experiment) was measured slower at every
-    # size on v5e: both compute engines walk ray blocks sequentially, so a
-    # wider pool adds no parallelism — it only shortens per-lane item lists
-    # (occupancy decay dominates sooner), widens drain levels, grows the
-    # sort. pool < n (pool_div) goes the other way: longer item lists =
-    # sharper lane-work concentration = higher occupancy, at the price of
-    # more passes (per-pass fixed overhead). Default: auto policy below.
+    # pool > n (pool_mult) shortens per-lane item lists (occupancy decay
+    # sets in sooner), widens drain levels and grows the sort. pool < n
+    # (pool_div) goes the other way: longer item lists = sharper lane-work
+    # concentration = higher occupancy, at the price of more passes
+    # (per-pass fixed overhead). Default: auto policy below.
     if pool_mult and pool_div:
         raise ValueError("pool_mult and pool_div are mutually exclusive")
     if not matmul_acc:
@@ -165,36 +141,28 @@ def _persistent_core(world_data, cam: CameraParams, resolution, n: int,
     elif pool_div:
         # Fractional pool: fewer lanes, each running ~pool_div*spp work
         # items. Longer per-lane item lists concentrate total lane work
-        # around the mean (CLT), so end-of-schedule occupancy decay — the
-        # dominant loss at large n (61% occupancy at 921k lanes, round 1) —
-        # shrinks as 1/sqrt(items_per). The item algebra needs only
+        # around the mean (CLT), so end-of-schedule occupancy decay shrinks
+        # as 1/sqrt(items_per). The item algebra needs only
         # spp | pool (items_per is a ceiling; overshoot items are masked).
         pool = -(-(n // pool_div) // spp) * spp
         if pool < spp:
             raise ValueError(
                 f"pool_div={pool_div} leaves a pool below spp={spp}")
     else:
-        # Auto policy (v5e sweep, 1280x720 spp64 headline): 86.2 Mrays/s at
-        # pool=n, 92.4 at n/2, 94.4 at n/4, 104.1 at n/8, 106.9 at n/16
-        # (pool 57.6k), 92.2 at n/32 — occupancy keeps improving with item
-        # list length until per-pass fixed costs dominate below ~50k lanes.
-        # Halve while staying >= POOL_FLOOR, then round up to an spp
-        # multiple (works for ANY n, e.g. the 3000x2000 flagship render).
-        #
-        # Legacy mesh scenes invert the trade: their pass body carries ~3x
-        # the fixed kernel-launch cost (sorts + packet kernel + atlas
-        # gathers, BASELINE.md round-3), so fewer/wider passes win — the
-        # yoimiya sweep measured 12.18 Mrays/s at pool=n vs 12.11 (n/2) and
-        # 11.98 (n/4 auto); keep the full-width pool there.
+        # Auto policy: occupancy improves with item-list length until
+        # per-pass fixed costs dominate, so halve while staying >=
+        # POOL_FLOOR, then round up to an spp multiple (works for ANY n,
+        # e.g. the 3000x2000 flagship render). Legacy mesh scenes carry a
+        # larger fixed cost per pass (sorts + atlas gathers), so they keep
+        # the full-width pool.
         pool = n
         if matmul_acc and scene != "legacy":
             while pool // 2 >= POOL_FLOOR:
                 pool //= 2
             pool = -(-pool // spp) * spp
-            # Align the pool to whole 1024-lane kernel blocks when spp
-            # allows: 57600 lanes = 56.25 blocks pads 768 dead lanes into
-            # every intersect pass (1.3% pure waste). Floor to the largest
-            # block-aligned spp-multiple >= POOL_FLOOR/2.
+            # Align the pool to whole 1024-lane blocks when spp allows
+            # (no padded dead lanes in the intersect pass). Floor to the
+            # largest block-aligned spp-multiple >= POOL_FLOOR/2.
             import math
 
             step = math.lcm(1024, spp)
@@ -237,25 +205,16 @@ def _persistent_core(world_data, cam: CameraParams, resolution, n: int,
 
     # The live-lane count is CARRIED in the loop state (computed inside the
     # body where it fuses with the alive-mask math) so every while cond is a
-    # scalar compare instead of a fresh full-array reduction — per-pass cost
-    # here is billed by kernel launches, not FLOPs (BASELINE.md round-3).
+    # scalar compare instead of a fresh full-array reduction.
     def cond(state):
         return state[-1] > 0.0
 
-    # Accumulation-cost policy. The flat one-hot matmul's in-loop cost is
-    # ~free at the 720p headline's items_per ~1029 (0.08 ms/pass measured
-    # in-loop by differencing against acc_split=-1) but grows ~linearly
-    # past XLA's fusion size and hits 0.59 ms/pass at 1080p's items ~2058
-    # — the round-4 verdict's 2x resolution-scaling loss (60.3 vs 114
-    # Mrays/s; without accumulation both resolutions run ~132-135,
-    # scripts/profile_res_scaling.py, v5e 2026-08-21). At the time1024
-    # config (spp 512, items ~16.5k) the [g, spp, items] one-hot operand
-    # reaches ~2.1 GB/pass and crashed the TPU worker outright.
-    #
-    # Fix: a SLIDING-WINDOW one-hot. Lane item counters k all start at 0
-    # and advance by at most 1 per pass, so the live k-range is tightly
-    # concentrated; deposits one-hot against a WIN-wide window
-    # ``wacc[groups, WIN, 3]`` over ``k - wbase`` (cost independent of
+    # Accumulation-cost policy. The flat one-hot's per-pass traffic grows
+    # with items_per (its operand is [g, spp, items]), so past
+    # _ACC_SPLIT_MIN_ITEMS a SLIDING-WINDOW one-hot takes over. Lane item
+    # counters k all start at 0 and advance by at most 1 per pass, so the
+    # live k-range is tightly concentrated; deposits one-hot against a
+    # WIN-wide window ``wacc[groups, WIN, 3]`` over ``k - wbase`` (cost independent of
     # items_per) and half-windows flush into the big accumulator by
     # dynamic-slice adds (no one-hot). A lane whose NEXT item would start
     # at k >= wbase + WIN parks (no fresh ray) until the window slides —
@@ -264,10 +223,8 @@ def _persistent_core(world_data, cam: CameraParams, resolution, n: int,
     #
     # ``acc_split``: 0 = auto (flat below _ACC_SPLIT_MIN_ITEMS, windowed
     # above), 1 = force flat, -1 = drop contributions (profiling only),
-    # -2 = force windowed (tests), >1 = the two-level factorized one-hot (k = q*P + p) — MEASURED
-    # SLOWER everywhere (end-to-end 1080p: 41-43 Mrays/s for P in 2..8 vs
-    # 60.3 flat vs ~113 windowed; the [g, spp, P*9] tmp expand breaks
-    # XLA's one-hot fusion), kept as the ablation record.
+    # -2 = force windowed (tests), >1 = the two-level factorized one-hot
+    # (k = q*P + p), kept as an ablation.
     _acc_P = 1
     windowed = (matmul_acc and acc_split in (0, -2)
                 and (acc_split == -2
@@ -281,7 +238,7 @@ def _persistent_core(world_data, cam: CameraParams, resolution, n: int,
         """Add per-lane contributions to the accumulator.
 
         matmul path: ``acc`` is ``f32[groups, items_per, 3]`` indexed by
-        (lane//spp, k); one-hot(s) over k ride the MXU as batched
+        (lane//spp, k); one-hot(s) over k run as batched matrix
         contractions — no scatter.
         """
         if not matmul_acc:
@@ -293,7 +250,7 @@ def _persistent_core(world_data, cam: CameraParams, resolution, n: int,
         if _acc_P > 1:
             # Two-level exact path: both one-hots are 0/1 (exact bf16) and
             # the f32 contribution splits exactly into 3 bf16 parts
-            # (24 = 3x8 mantissa bits), so ONE default-precision MXU pass
+            # (24 = 3x8 mantissa bits), so ONE default-precision pass
             # with f32 accumulation reproduces the flat path's term set.
             q_w = items_per // _acc_P
             q_g = k_g // jnp.uint32(_acc_P)
@@ -316,17 +273,14 @@ def _persistent_core(world_data, cam: CameraParams, resolution, n: int,
                 preferred_element_type=jnp.float32)        # [g, q_w, P*9]
             d = d.reshape(groups, items_per, 9)
             return acc + (d[..., 0:3] + d[..., 3:6] + d[..., 6:9])
-        # Exact bf16-split accumulation on the DEFAULT MXU path. Default
-        # precision would truncate the radiance contributions to bf16
-        # (banding in smooth gradients) and precision=HIGHEST fixes that by
-        # running ~6 bf16 passes over BOTH operands — but the one-hot
+        # Exact bf16-split accumulation at default precision. The one-hot
         # operand is exactly representable in bf16 (entries are 0/1), and
         # an f32 contribution splits EXACTLY into 3 non-overlapping bf16
-        # parts (24 = 3x8 mantissa bits; each bf16xbf16 product is exact
-        # and the MXU accumulates in f32). One default-precision pass over
-        # [spp, 3*items] replaces HIGHEST's multi-pass split of both
-        # operands. Same term set per (g, item) cell — only f32 add
-        # order differs (~1 ulp, the integrator's documented freedom).
+        # parts (24 = 3x8 mantissa bits), so every bf16 x bf16 product is
+        # exact and the tensor cores accumulate in f32 — exact in any
+        # tensor-core mode, with no precision flag needed. Same term set
+        # per (g, item) cell — only f32 add order differs (~1 ulp, the
+        # integrator's documented freedom).
         onehot = (k_g[:, :, None] == jnp.arange(items_per, dtype=jnp.uint32)
                   ).astype(jnp.bfloat16)
         hi = c_g.astype(jnp.bfloat16)
@@ -492,17 +446,10 @@ def _persistent_core(world_data, cam: CameraParams, resolution, n: int,
     def _round256(v):
         return -(-v // 256) * 256
 
-    # drain_floor: narrowest level the cascade may reach. For packet BVH
-    # traversal a narrow incoherent pass still walks ~the whole tree (drain
-    # passes averaged ~6 ms vs 2.58 ms full-width on Yoimiya), so raising
-    # the floor looked promising — but the end-to-end sweep refutes it:
-    # floor 256 = 11.25 Mrays/s, 1024 = 10.82, 4096 = 10.52, no drain =
-    # 10.29 (scripts/sweep_drain_floor.py, v5e 2026-08-18). Fewer full-width
-    # passes (338 vs 453) outweigh the expensive tail, so the deep cascade
-    # stays the default everywhere.
+    # drain_floor: narrowest level the cascade may reach (default 256).
     if drain_floor <= 0:
         drain_floor = 256
-    _ratio = drain_ratio  # 8 measured best on v5e (4 worse; see BASELINE.md)
+    _ratio = drain_ratio
     levels = []
     lw = _round256(pool // _ratio)
     while (matmul_acc and lw >= drain_floor
@@ -575,12 +522,7 @@ def _persistent_core(world_data, cam: CameraParams, resolution, n: int,
 
         # drain_unroll > 1 runs that many bounce steps per while iteration
         # (steps on a drained pool are exact no-ops, so overshoot past the
-        # level boundary never changes results). Measured NEUTRAL on v5e:
-        # yoimiya spp64 wall was 1.670 s with unroll 1 and with 2/4/8 —
-        # while-iteration overhead inside a jitted loop is ~0 on this
-        # runtime; drain cost is per-STEP compute (the packet kernel's
-        # node union, width-independent — see c9b0878). Kept as an
-        # ablation knob; auto stays 1.
+        # level boundary never changes results). Ablation knob; auto is 1.
         unroll = drain_unroll if drain_unroll > 0 else 1
 
         def body_d(state, item_of_d=item_of_d, samp_cur=samp_cur,
@@ -610,67 +552,3 @@ def _persistent_core(world_data, cam: CameraParams, resolution, n: int,
         }
     return acc_flat, segments
 
-
-def _render_mega(world_data, cam: CameraParams, resolution, spp: int,
-                 limit: int, seed, interpret: bool | None = None):
-    """Fused-megakernel persistent render (see ops/bounce_megakernel.py)."""
-    from ..ops import bounce_megakernel as mk
-
-    if interpret is None:
-        # Pallas interpreter on CPU so the megakernel stays testable there.
-        interpret = jax.default_backend() == "cpu"
-
-    w, h = resolution
-    n = w * h
-    groups = n // spp
-    n_pad = -(-n // mk.RAY_BLOCK) * mk.RAY_BLOCK
-
-    table, attrs = mk.pack_scene(world_data)
-    scalf = mk.pack_camera(cam, resolution)
-    scali = jnp.asarray([seed], jnp.int32)
-
-    lanes = jnp.arange(n, dtype=jnp.uint32)
-    pix0 = lanes // jnp.uint32(spp)
-    samp0 = lanes % jnp.uint32(spp)
-    rays0 = generate_rays_for_pixels(cam, resolution, pix0, seed, samp0,
-                                     model="thinlens")
-    stf = jnp.zeros((16, n_pad), jnp.float32)
-    stf = stf.at[mk._RO:mk._RO + 3, :n].set(rays0.ro.T)
-    stf = stf.at[mk._RD:mk._RD + 3, :n].set(rays0.rd.T)
-    stf = stf.at[mk._THP:mk._THP + 3, :n].set(rays0.throughput.T)
-    stf = stf.at[mk._ALIVE, :n].set(1.0)
-    sti = jnp.zeros((8, n_pad), jnp.int32)
-
-    karange = jnp.arange(spp, dtype=jnp.int32)
-
-    def accumulate(acc, k, contrib):
-        # contrib rows f32[3, n_pad]; lane→(group, k) one-hot matmul as in
-        # the modular path (pad lanes/k>=spp fall outside the onehot).
-        k_g = k[:n].reshape(groups, spp)
-        c_g = contrib[:, :n].reshape(3, groups, spp)
-        onehot = (k_g[:, :, None] == karange).astype(jnp.float32)
-        # [g, r, k] x [c, g, r] -> [g, k, c]
-        delta = jnp.einsum("grk,cgr->gkc", onehot, c_g,
-                           preferred_element_type=jnp.float32,
-                           precision=jax.lax.Precision.HIGHEST)
-        return acc + delta
-
-    def cond(state):
-        stf, _, _, _ = state
-        return jnp.any(stf[mk._ALIVE] > 0.5)
-
-    def body(state):
-        stf, sti, acc, segments = state
-        segments = segments + jnp.sum(stf[mk._ALIVE, :])
-        k_in = sti[mk._K]
-        stf2, sti2 = mk.bounce_pass(stf, sti, table, attrs, scalf, scali,
-                                    resolution, spp, limit=limit,
-                                    interpret=interpret)
-        acc = accumulate(acc, k_in, stf2[mk._CONTRIB:mk._CONTRIB + 3])
-        return stf2, sti2, acc, segments
-
-    acc0 = jnp.zeros((groups, spp, 3), jnp.float32)
-    state0 = (stf, sti, acc0, jnp.float32(0.0))
-    _, _, acc, segments = jax.lax.while_loop(cond, body, state0)
-    img = acc.transpose(1, 0, 2).reshape(n, 3)
-    return (img / spp).reshape(w, h, 3), segments

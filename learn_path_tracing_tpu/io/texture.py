@@ -121,17 +121,26 @@ def _probe_size(file_path):
 
         arr = read_exr(path)
         return (arr.shape[1], arr.shape[0])  # (w, h)
-    from PIL import Image
-
-    with Image.open(path) as img:
+    with _pil_image().open(path) as img:
         return img.size  # (w, h)
 
 
 # ------------------------------------------------------------ host loaders --
 
-def _decode(path, size, mode=None):
-    from PIL import Image
+def _pil_image():
+    """PIL's ``Image`` module, imported only when a texture image is loaded
+    (mesh scenes); the sphere scenes and PNG output never need it."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            "loading texture images needs Pillow (PIL), which is not "
+            "installed; sphere scenes and PNG output do not need it") from e
+    return Image
 
+
+def _decode(path, size, mode=None):
+    Image = _pil_image()
     img = Image.open(path)
     if mode:
         img = img.convert(mode)
@@ -196,8 +205,8 @@ def build_environment_atlas(configs, atlas_size, path_map=None):
     config ids whose source file was missing/undecodable and therefore hold
     the procedural sky gradient — callers can route those through the
     analytic gradient evaluation instead of atlas taps (environment_color's
-    ``gradient_h`` fast path; the tap costs ~4 ms per 230k-lane pass in row
-    gathers for what is a 6-op closed form)."""
+    ``gradient_h`` fast path; the tap costs two row gathers per lane for
+    what is a 6-op closed form)."""
     w, h = atlas_size
     atlas = np.zeros((w, h, 3), np.float32)
     gradient_ids = set()
@@ -215,18 +224,10 @@ def build_environment_atlas(configs, atlas_size, path_map=None):
                     from .exr import read_exr
 
                     env = np.asarray(read_exr(path), np.float32)[..., :3]
-                except Exception:
-                    try:  # fall back to imageio if a plugin exists
-                        import imageio.v2 as imageio
-
-                        env = np.asarray(imageio.imread(path),
-                                         np.float32)[..., :3]
-                    except Exception as e:
-                        warnings.warn(f"EXR decode failed ({e}): {path}")
+                except Exception as e:
+                    warnings.warn(f"EXR decode failed ({e}): {path}")
             else:
-                from PIL import Image
-
-                env = np.asarray(Image.open(path).convert("RGB"),
+                env = np.asarray(_pil_image().open(path).convert("RGB"),
                                  np.float32) / 255.0
         if env is None:
             warnings.warn(f"environment missing, using sky gradient: {path}")
@@ -238,8 +239,6 @@ def build_environment_atlas(configs, atlas_size, path_map=None):
             grad = bottom[None] * (1 - v)[:, None] + top[None] * v[:, None]
             env_uv = np.broadcast_to(grad[None, :, :], (*size, 3)).copy()
         else:
-            from PIL import Image
-
             if env.shape[:2][::-1] != size:
                 # resize via PIL on the HDR data channel-wise is lossy; use
                 # simple nearest for robustness
@@ -341,10 +340,8 @@ def sample_nearest(img, info_low, info_high, tex_id, u, v):
 
 # ------------------------------------------------- strip-packed fast taps --
 #
-# XLA row-gathers on this hardware are row-count bound, not byte bound
-# (measured: 16.8M-row table ~90 Mrows/s vs 4M-row ~280 Mrows/s, width
-# 8 vs 16 nearly free — scripts/profile_gather.py). A bilinear tap as 4
-# independent texel gathers is therefore the worst possible shape. Strip
+# A bilinear tap as 4 independent texel gathers costs four random row
+# fetches per lane, where widening a row costs little. Strip
 # packing stores runs of T horizontally-adjacent texels per row with a
 # one-texel overlap between consecutive strips (stride T-1), u-wrap baked
 # in cyclically per texture rect — so the two texels (l, l+1) of a
@@ -362,8 +359,7 @@ class StripAtlas:
     base: jnp.ndarray       # i32[K] first table row of each rect
     spr: jnp.ndarray        # i32[K] strips per texel row of each rect
     # packed per-texture row (w, h, base, spr) — the sampler reads this with
-    # ONE row gather instead of four element takes (element takes measured
-    # ~2.5x slower than row takes at wavefront width, profile_sortpath.py)
+    # ONE row gather instead of four element takes
     info: jnp.ndarray       # i32[K, 4]
 
 
@@ -379,11 +375,7 @@ def pack_strips(atlas_np, info_low, info_high, texels: int,
     Each table row carries BOTH texel rows of a bilinear tap: columns
     ``[0, T*C)`` are texel row ``y``, columns ``[T*C, 2*T*C)`` are texel row
     ``(y+1) mod h`` (the v-wrap baked in). Storage doubles, but a full
-    bilinear tap becomes ONE random row gather — and XLA row gathers on this
-    hardware are row-count bound, not byte bound (~68 M rows/s at 460k rows
-    from a 287 MB table, scripts/profile_tap_variants.py: the 2-row variant
-    measured 6.8-7.5 ms per 230k taps, the texel-level 4-gather variant
-    14.7 ms, while widening rows is nearly free).
+    bilinear tap becomes ONE random row gather instead of four.
     """
     low = np.asarray(info_low)
     high = np.asarray(info_high)

@@ -1,4 +1,5 @@
 from .scenes import (
+    ibl_mesh_scene,
     random_scene,
     stage10_camera,
     stage3_scene,
@@ -9,6 +10,7 @@ from .scenes import (
 )
 
 __all__ = [
+    "ibl_mesh_scene",
     "random_scene",
     "stage10_camera",
     "stage3_scene",

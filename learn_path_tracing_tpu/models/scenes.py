@@ -121,3 +121,51 @@ def stage10_camera(resolution=(1280, 720)) -> Camera:
     cam.set_fov(40.0)
     cam.set_len(10.0, 0.2)
     return cam
+
+
+def ibl_mesh_scene(env_path: str, resolution=(64, 36)):
+    """Seeded legacy-line scene: a textured quad floor and one sphere lit
+    by a procedural equirect environment, written to ``env_path`` as an EXR
+    and loaded back through the texture pipeline. Exercises the mesh BVH
+    (accel/wide.py), the sphere BVH, the atlases and the EXR codec without
+    any file outside the repo. Returns ``(LegacyWorldData, Camera)``; the
+    committed golden tests/goldens_self/ibl_mesh_64x36_spp4_seed3.png is
+    this scene at 64x36, spp 4, depth 6, seed 3."""
+    import warnings
+
+    import numpy as np
+
+    from ..io.exr import write_exr
+    from ..io.obj import MeshData
+    from ..scene.legacy_world import LegacyWorld
+
+    h, w = 32, 64
+    env = np.zeros((h, w, 3), np.float32)
+    ys = np.linspace(0, 1, h, dtype=np.float32)[:, None, None]
+    env[:] = (1 - ys) * np.array([4.0, 2.0, 0.5]) + ys * np.array(
+        [0.2, 0.4, 1.5])
+    quad = MeshData(
+        positions=np.array([[-1, 0, -1], [1, 0, -1], [1, 0, 1], [-1, 0, 1]],
+                           np.float32) * 2.0,
+        normals=np.array([[0, 1, 0]], np.float32),
+        uvs=np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32),
+        face_p=np.array([[0, 1, 2], [0, 2, 3]], np.int32),
+        face_n=np.array([[0, 0, 0], [0, 0, 0]], np.int32),
+        face_t=np.array([[0, 1, 2], [0, 2, 3]], np.int32),
+        face_tex=np.array([0, 0], np.int32),
+        textures=[],
+    )
+    write_exr(env_path, env, half=False, compression="zip")
+    world = LegacyWorld(environment_size=(128, 64))
+    world.add_mesh(quad)
+    world.add_sphere((0.0, 1.0, 0.0), 0.8, transparency=0, texture_id=0)
+    world.textures.add("missing_texture", 0, size=(8, 8))
+    world.environments.add(env_path, 0)
+    world.set_environment(0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        wd = world.build()
+    cam = Camera(resolution, fov=50)
+    cam.set_position((0.0, 2.0, 5.0))
+    cam.look_at((0.0, 0.8, 0.0))
+    return wd, cam

@@ -1,12 +1,12 @@
 """Multi-chip rendering over a device mesh.
 
 The reference is single-GPU (SURVEY.md §2.3: no distributed code exists).
-On TPU the workload's natural parallel axes are:
+The workload's natural parallel axes are:
 
 - ``tile``: data-parallel pixel tiles — zero cross-chip traffic during
   tracing; each device owns a contiguous chunk of the flat pixel axis;
 - ``spp``: sample-parallel — each device renders a subset of the samples of
-  *every* pixel, reduced with ``psum`` over ICI at the end.
+  *every* pixel, reduced with ``psum`` (NCCL over NVLink) at the end.
 
 Because the RNG is counter-based on (absolute pixel id, absolute sample
 index), the sharded render computes bit-identical per-sample radiance to the
@@ -132,7 +132,7 @@ def render_persistent_multichip(world_data, cam: CameraParams, resolution,
     drain-cascade argsort compaction and one-hot accumulation are all
     shard-local, so there is ZERO cross-chip traffic during tracing — one
     ``psum`` folds the spp axis and the tile gather assembles the image at
-    the very end (the ICI cost is one image-sized all-gather equivalent).
+    the very end (one image-sized all-gather equivalent).
     Per-sample radiance is bit-identical to the single-chip path (counter
     RNG on absolute pixel/sample ids); per-pixel sums differ only in f32
     association order, and traced segment counts match exactly.

@@ -2,7 +2,7 @@
 (/root/reference/legacy/PT_in_one_weekend/11_bvh.py:487-535): the cover
 scene with legacy materials (absorptivity, continuous roughness), SAH
 sphere BVH, fov 20, thin lens (10, 0.1), camera orbiting at radius 15.
-Frames are written as PNGs (the ti.GUI window has no TPU analog).
+Frames are written as PNGs (the ti.GUI window has no analog on a headless host).
 """
 
 import math
@@ -66,10 +66,9 @@ def main():
         cam.set_position((15 * math.cos(0.1 * i + 1e-4), 2,
                           15 * math.sin(0.1 * i + 1e-4)))
         cam.look_at((0, 0, 0))
-        # hit_backend from config (default 'auto'): the lockstep 'bvh'
-        # walk is the reference-structure demo but outlives the TPU
-        # watchdog at full wavefront width — pass --hit-backend bvh to
-        # force it (fine on CPU / small renders)
+        # hit_backend from config (default 'auto' = the sphere scan);
+        # pass --hit-backend bvh for the reference-structure lockstep
+        # BVH walk
         img, _ = render(wd, cam.params(), res, spp=args.spp,
                         limit=min(args.limit, 10), seed=i, bsdf="legacy",
                         hit_backend=args.hit_backend)

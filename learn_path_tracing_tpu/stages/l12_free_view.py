@@ -1,7 +1,7 @@
 """Legacy stage 12: free-fly camera with progressive accumulation
 (/root/reference/legacy/PT_in_one_weekend/12_free_view.py:553-579).
 
-There is no window on a TPU host; this stage runs a scripted WASD-style
+There is no window on a headless GPU host; this stage runs a scripted WASD-style
 flythrough: each "keyframe" applies camera moves (the same move_front/
 move_right/move_up/rotate controls as the reference) and renders a
 progressively-accumulated frame, resetting accumulation on movement —

@@ -1,3 +1,3 @@
-from . import benchlib, checks, config, profiling
+from . import checks, config, profiling, runtime
 
-__all__ = ["benchlib", "checks", "config", "profiling"]
+__all__ = ["checks", "config", "profiling", "runtime"]

@@ -1,7 +1,7 @@
 """Numerical-safety checks (the race-detection/sanitizer slot of SURVEY §5).
 
 The reference relies on Taichi atomics and one in-kernel assert
-(legacy/test.py:13). TPU wavefronts have no atomics (each pixel is owned by
+(legacy/test.py:13). These wavefronts use no atomics (each pixel is owned by
 one lane), so the failure mode to guard is NaN/Inf contamination instead:
 
 - ``validate_image``: host-side post-render check (free; use in stages);

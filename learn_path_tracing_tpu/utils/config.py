@@ -1,22 +1,10 @@
 """Render configuration (the reference's module-level constants, as data).
 
 Mirrors the knob set of 15_module.py:36-44 and 10_final/__main__.py:50-52:
-resolution / spp / batch / propagate_limit / epsilon plus our TPU-side
+resolution / spp / batch / propagate_limit / epsilon plus our device-side
 options. Plain dataclass — hashable fields are jit-static by construction.
-
-Ablation-only environment knobs (the complete list). All are Pallas kernel
-block sizes, read ONCE at module import (never at trace time inside jitted
-code), with measured defaults — set them only when re-running the block
-sweeps in scripts/:
-
-  LPT_SPHERE_BLOCK      rays/grid-step of ops/sphere_scan.py (default 1024)
-  LPT_PACKET_BLOCK      rays/packet of ops/packet_traverse.py (default 1024)
-  LPT_MEGA_RAY_BLOCK    ops/bounce_megakernel.py ray block (default 2048;
-  LPT_MEGA_SPHERE_CHUNK   ... sphere chunk, 256) — non-default engine
-
-Everything else (pool sizing, drain cascade, sort behavior, backends) is a
-keyword argument of render_persistent / hit functions with the measured
-default; no other os.environ reads exist in the library.
+Every option is a field here or a keyword argument of the render functions;
+the library reads no environment variables of its own.
 """
 
 from __future__ import annotations
@@ -36,7 +24,7 @@ class RenderConfig:
     bsdf: str = "modern"          # diffuse | modern | legacy
     scene: str = "spheres"        # spheres | legacy
     camera_model: str = "thinlens"
-    hit_backend: str = "auto"     # auto | xla | pallas | bvh
+    hit_backend: str = "auto"     # auto | xla | bvh
     early_exit: bool = True
     out: str | None = None        # output path override (stages/CLI)
 

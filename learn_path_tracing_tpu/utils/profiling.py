@@ -33,7 +33,7 @@ def timed(label: str, segments=None):
 
 @contextlib.contextmanager
 def trace(logdir: str = "/tmp/lpt_trace"):
-    """jax.profiler trace around a block (TPU timeline in TensorBoard)."""
+    """jax.profiler trace around a block (device timeline in TensorBoard)."""
     import jax
 
     jax.profiler.start_trace(logdir)

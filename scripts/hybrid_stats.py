@@ -26,13 +26,6 @@ def main():
                    help="WxH (the bench config is 1280x720)")
     args = p.parse_args()
 
-    import jax
-    import jax.numpy as jnp
-
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/jax_lpt_tpu"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
-
     from learn_path_tracing_tpu.camera import LegacyCamera
     from learn_path_tracing_tpu.integrator.hybrid import render_hybrid
     from worldcache import load_world

@@ -1,11 +1,11 @@
 """Generate the committed CPU self-goldens for the legacy pipeline.
 
 The reference ships no small-scene legacy goldens (its character renders
-are full-res PNGs validated visually on TPU), so CI pins the legacy render
+are full-res PNGs validated visually), so CI pins the legacy render
 semantics with tiny SELF-rendered images instead: fixed seed, CPU backend,
 committed under tests/goldens_self/. Any semantic drift in
 hit_legacy / scatter_legacy / serialization / atlas sampling changes these
-pixels and fails the fast tier without needing a TPU.
+pixels and fails the fast tier without needing a GPU.
 
 Run from the repo root after an INTENTIONAL semantic change:
     python scripts/make_self_goldens.py

@@ -4,7 +4,7 @@ The reference's World API composes N meshes + spheres in one scene
 (/root/reference/legacy/PT_in_one_weekend/15_module.py:782-848) but every
 shipped demo is single-mesh. This renders Yoimiya + Zhongli + Ganyu +
 Barbara side by side (~90k triangles total) — the multi-mesh path the
-merged global BVH exists for: one packet traversal launch per wavefront
+merged global BVH exists for: one traversal per wavefront
 regardless of mesh count (scene/legacy_world._merge_mesh_geometry).
 
 Usage: python scripts/render_four_characters.py [--spp 128] [--res 960x540]

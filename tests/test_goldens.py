@@ -4,7 +4,7 @@ Stages 2-4 are deterministic (no RNG anywhere in their pipelines), so our
 renders must match /root/reference/outputs/*.png almost pixel-exactly —
 differences come only from f32 math ordering and PNG quantization.
 
-MC stages (5-10) are compared statistically elsewhere (bench/TPU runs);
+MC stages (5-10) are compared statistically elsewhere (chip_smoke.py);
 doing 8192-spp renders on the test CPU is not practical.
 """
 

@@ -12,8 +12,8 @@ from learn_path_tracing_tpu.integrator.wavefront import render
 
 
 def _mini_legacy_world():
-    # (moved from the retired test_cohort.py, round 4 — the cohort
-    # integrator was deleted after the hybrid superseded it, BASELINE.md)
+    # (moved from the retired test_cohort.py: the cohort integrator was
+    # deleted after the hybrid superseded it)
     import warnings
 
     from learn_path_tracing_tpu.io.obj import MeshData

@@ -453,16 +453,15 @@ def test_demo_world_renders():
 
 
 def test_sphere_scan_matches_lockstep_legacy_semantics(np_rng):
-    """hit_legacy routes sphere intersection through the Pallas brute scan
-    on accelerators (the lockstep BVH walk is watchdog-fatal at wavefront
-    scale on TPU); the two backends must agree on the legacy sphere rules
+    """The brute-force sphere scan (geometry/sphere.py) and the lockstep
+    sphere-BVH walk hit_legacy runs must agree on the legacy sphere rules
     (t_min epsilon + transparent far-root, 11_bvh.py:424-431)."""
     from learn_path_tracing_tpu.accel.bvh import build_bvh
     from learn_path_tracing_tpu.accel.traverse import (
         make_sphere_leaf_test,
         traverse,
     )
-    from learn_path_tracing_tpu.ops.sphere_scan import intersect_spheres_pallas
+    from learn_path_tracing_tpu.geometry.sphere import intersect_spheres
 
     ns, nr = 97, 256
     centers = (np_rng.random((ns, 3)).astype(np.float32) - 0.5) * 20
@@ -477,9 +476,9 @@ def test_sphere_scan_matches_lockstep_legacy_semantics(np_rng):
     lt = make_sphere_leaf_test(jnp.asarray(centers), jnp.asarray(radii),
                                jnp.asarray(transparency))
     t0, p0 = traverse(bvh, jnp.asarray(ro), jnp.asarray(rd), lt)
-    t1, p1 = intersect_spheres_pallas(
+    t1, p1 = intersect_spheres(
         jnp.asarray(ro), jnp.asarray(rd), jnp.asarray(centers),
-        jnp.asarray(radii), jnp.asarray(transparency), interpret=True)
+        jnp.asarray(radii), jnp.asarray(transparency))
     t1 = jnp.where(jnp.isfinite(t1), t1, jnp.inf)
 
     t0, t1 = np.asarray(t0), np.asarray(t1)
@@ -527,130 +526,13 @@ def test_shade_attrs_compaction_matches_direct():
     check(0.80)    # full fallback
 
 
-@pytest.mark.slow  # interpret-mode packet kernel over 2 blocks (~30 s/core)
-def test_hit_legacy_fused_matches_composed(monkeypatch):
-    """The single-mesh fused hit path (one coherence sort, attrs on the
-    treelet-entered prefix, one restoring sort) must reproduce the composed
-    packet path exactly: same kernel semantics, same attribute math,
-    permutation-exact sorts. Both run in Pallas interpret mode on CPU
-    (_FORCE_ACCEL_INTERPRET routes hit_legacy through the composed
-    accelerator path; the fused path is called directly). Verified bitwise
-    on the real TPU as well (0 mismatches on this exact scene/ray set)."""
-    import learn_path_tracing_tpu.scene.legacy_world as lw
-    from learn_path_tracing_tpu.scene.legacy_world import _hit_legacy_fused
-
-    monkeypatch.setattr(lw, "_FORCE_ACCEL_INTERPRET", True)
-
-    world = LegacyWorld()
-    world.add_mesh(_quad_mesh())
-    world.textures.add("missing", 0, size=(8, 8))
-    world.set_environment(0)
-    import warnings
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        world.build()
-    wd = world.device()
-
-    n = 2048
-    rs = np.random.RandomState(11)
-    # aim most rays at quad-interior points from random origins (z > 0 and
-    # z < 0 to exercise backface flips), mix in sure misses + inactive lanes
-    target = np.concatenate(
-        [rs.uniform(0.05, 1.95, (n, 2)), np.zeros((n, 1))], axis=1)
-    ro = rs.uniform(-3, 3, (n, 3)).astype(np.float32)
-    ro[:, 2] = np.where(rs.rand(n) < 0.5, rs.uniform(2, 6, n),
-                        rs.uniform(-6, -2, n)).astype(np.float32)
-    rd = (target - ro).astype(np.float32)
-    miss = rs.rand(n) < 0.2
-    rd[miss] = rs.normal(size=(miss.sum(), 3)).astype(np.float32)
-    rd[miss, 2] = np.abs(rd[miss, 2]) + 0.5  # away from the quad plane side
-    ro[miss, 2] = np.abs(ro[miss, 2]) + 2.0
-    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
-    alive = rs.rand(n) > 0.1
-    rays = Rays(ro=jnp.asarray(ro), rd=jnp.asarray(rd),
-                throughput=jnp.ones((n, 3), jnp.float32),
-                alive=jnp.asarray(alive))
-
-    ref = hit_legacy(wd, rays)          # composed packet path (interpret)
-    fused = _hit_legacy_fused(wd, rays, interpret=True)
-
-    np.testing.assert_array_equal(np.asarray(fused.hit), np.asarray(ref.hit))
-    np.testing.assert_array_equal(np.asarray(fused.obj), np.asarray(ref.obj))
-    h = np.asarray(ref.hit)
-    np.testing.assert_array_equal(np.asarray(fused.t)[h], np.asarray(ref.t)[h])
-    for name in ("normal", "uv", "point"):
-        np.testing.assert_array_equal(np.asarray(getattr(fused, name))[h],
-                                      np.asarray(getattr(ref, name))[h])
-    # tap-derived channels: the bilinear atlas blend sits in a different
-    # fusion context per path, so FMA contraction differs by ~1 ulp on a
-    # handful of lanes — geometry (above) stays bitwise identical
-    for name in ("albedo", "roughness", "metallic", "ior", "absorptivity",
-                 "transparency"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(fused.material, name))[h],
-            np.asarray(getattr(ref.material, name))[h], rtol=3e-7, atol=1e-7)
-    # inactive lanes never hit
-    assert not np.asarray(fused.hit)[~alive].any()
-
-
-def test_sphere_scan_ceiling_warns(monkeypatch):
-    """The accelerator path brute-scans spheres; past SPHERE_SCAN_CEILING it
-    must warn (the O(S) fallback never silently eats a big scene). Below the
-    ceiling the trace stays silent."""
-    import warnings
-
-    import learn_path_tracing_tpu.scene.legacy_world as lw
-    from learn_path_tracing_tpu.accel.bvh import build_bvh
-    from learn_path_tracing_tpu.scene.legacy_world import (
-        SPHERE_SCAN_CEILING,
-        SphereDeviceData,
-    )
-
-    monkeypatch.setattr(lw, "_FORCE_ACCEL_INTERPRET", True)
-
-    import jax
-
-    def world_with(n_spheres):
-        base = _built_world().device()  # small mesh+sphere world for atlases
-        rs = np.random.RandomState(3)
-        c = rs.uniform(-50, 50, (n_spheres, 3)).astype(np.float32)
-        r = np.full((n_spheres,), 0.5, np.float32)
-        bvh = build_bvh(c - r[:, None], c + r[:, None], centroid=c,
-                        max_depth=12, max_leaf=8)
-        spheres = SphereDeviceData(
-            center=jnp.asarray(c), radius=jnp.asarray(r),
-            transparency=jnp.zeros((n_spheres,), jnp.float32),
-            tex=jnp.zeros((n_spheres,), jnp.int32), bvh=bvh)
-        return type(base)(meshes=base.meshes, spheres=spheres,
-                          atlas=base.atlas, envs=base.envs,
-                          env_id=base.env_id, tri_attr=base.tri_attr,
-                          env_gradient_h=base.env_gradient_h)
-
-    rays = _rays([[0, 0, 5]], [[0, 0, -1]])
-
-    # trace only (eval_shape): the warning is a trace-time property.
-    # (worlds BUILT through LegacyWorld auto-pack sphere packet tables past
-    # the ceiling — tests/test_sphere_packet.py; this hand-built device
-    # data has none, which is exactly the case that must stay loud)
-    with pytest.warns(UserWarning, match="brute scan"):
-        jax.eval_shape(hit_legacy, world_with(SPHERE_SCAN_CEILING + 4), rays)
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")
-        jax.eval_shape(hit_legacy, world_with(64), rays)
-
-
-@pytest.mark.slow  # interpret-mode packet kernel (~30 s/core)
-def test_trace_shade_compact_matches_hit_legacy(monkeypatch):
-    """trace_shade_compact's accelerator branch (payload through the
-    traversal sort + hit-compaction, no restoring sort) must agree with
-    hit_legacy per work item: same hit set, same t/attrs for each carried
-    tag, hits exactly in the prefix [0, nhits)."""
-    import learn_path_tracing_tpu.scene.legacy_world as lw
+@pytest.mark.slow
+def test_trace_shade_compact_matches_hit_legacy():
+    """trace_shade_compact (payload through the hit-compaction sort, no
+    restoring sort) must agree with hit_legacy per work item: same hit set,
+    same t/attrs for each carried tag, hits exactly in the prefix
+    [0, nhits)."""
     from learn_path_tracing_tpu.scene.legacy_world import trace_shade_compact
-
-    monkeypatch.setattr(lw, "_FORCE_ACCEL_INTERPRET", True)
 
     world = LegacyWorld()
     world.add_mesh(_quad_mesh())

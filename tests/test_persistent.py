@@ -103,8 +103,7 @@ def test_nondivisor_pool_matches_default():
 
 def test_factorized_accumulate_matches_flat():
     """acc_split=P switches the accumulator to the factorized two-one-hot
-    routing (k = q*P + p) — kept as an ablation knob (measured slower than
-    the flat one-hot end-to-end on the headline, BASELINE.md round-3).
+    routing (k = q*P + p) — kept as an ablation knob.
     Same term set per (group, item) cell, so only f32 add order within a
     cell may differ (~1 ulp) from the flat path — and both must match the
     reference-mode wavefront image with exact segment counts."""

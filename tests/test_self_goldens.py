@@ -5,10 +5,8 @@ GPU; CI needs something that runs on one CPU core. These tests re-render
 two tiny fixed-seed scenes and pixel-compare against PNGs committed by
 scripts/make_self_goldens.py — any semantic drift in hit_legacy,
 scatter_legacy, .world.npy loading, the texture/environment atlases, or
-the EXR codec moves these pixels. (The accelerator packet/fused hit paths
-are pinned to this XLA path by the exact-equivalence tests in
-test_legacy.py / test_packet_traverse.py, so drift there breaks CI
-transitively.)
+the EXR codec moves these pixels. The GPU runs the same XLA traversal
+path; chip_smoke.py compares it with the same golden on the card.
 
 Tolerance: the renders are deterministic for a fixed seed; the tolerance
 only absorbs uint8 quantization plus cross-version XLA FMA/fusion changes
@@ -65,45 +63,10 @@ def test_demo_world_golden():
 
 
 def test_ibl_mesh_golden(tmp_path):
-    from learn_path_tracing_tpu.io.exr import write_exr
-    from learn_path_tracing_tpu.io.obj import MeshData
-    from learn_path_tracing_tpu.scene.legacy_world import LegacyWorld
-
-    h, w = 32, 64
-    env = np.zeros((h, w, 3), np.float32)
-    ys = np.linspace(0, 1, h, dtype=np.float32)[:, None, None]
-    env[:] = (1 - ys) * np.array([4.0, 2.0, 0.5]) + ys * np.array(
-        [0.2, 0.4, 1.5])
-
-    quad = MeshData(
-        positions=np.array([[-1, 0, -1], [1, 0, -1], [1, 0, 1], [-1, 0, 1]],
-                           np.float32) * 2.0,
-        normals=np.array([[0, 1, 0]], np.float32),
-        uvs=np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32),
-        face_p=np.array([[0, 1, 2], [0, 2, 3]], np.int32),
-        face_n=np.array([[0, 0, 0], [0, 0, 0]], np.int32),
-        face_t=np.array([[0, 1, 2], [0, 2, 3]], np.int32),
-        face_tex=np.array([0, 0], np.int32),
-        textures=[],
-    )
-
-    p = str(tmp_path / "env.exr")
-    write_exr(p, env, half=False, compression="zip")
-    world = LegacyWorld(environment_size=(128, 64))
-    world.add_mesh(quad)
-    world.add_sphere((0.0, 1.0, 0.0), 0.8, transparency=0, texture_id=0)
-    world.textures.add("missing_texture", 0, size=(8, 8))
-    world.environments.add(p, 0)
-    world.set_environment(0)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        world.build()
-    wd = world.device()
+    from learn_path_tracing_tpu.models import ibl_mesh_scene
 
     res = (64, 36)
-    cam = Camera(res, fov=50)
-    cam.set_position((0.0, 2.0, 5.0))
-    cam.look_at((0.0, 0.8, 0.0))
+    wd, cam = ibl_mesh_scene(str(tmp_path / "env.exr"), res)
     img, _ = render(wd, cam.params(), res, spp=4, limit=6, seed=3,
                     bsdf="legacy", scene="legacy")
     _compare(np.asarray(img) ** (1 / 2.2), "ibl_mesh_64x36_spp4_seed3.png")
